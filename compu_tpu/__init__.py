@@ -1,9 +1,9 @@
-"""compu_tpu — a TPU-native lossless compression codec suite.
+"""compu_tpu — an accelerator-native lossless compression codec suite.
 
 A brand-new implementation of the capabilities of the reference library
 "compu" (a streaming facade over DEFLATE/zlib, zstd, and brotli), designed
-TPU-first: the codec internals (LZ match finding, Huffman / FSE entropy
-coding, bit-exact bitstream packing) run as JAX/Pallas device pipelines over
+device-first: the codec internals (LZ match finding, Huffman / FSE entropy
+coding, bit-exact bitstream packing) run as JAX device pipelines over
 fixed-shape blocks, while compu's Encoder/Decoder streaming state machine
 (NeedInput/NeedOutput/Finished, Process/Flush/Finish, reset) survives as the
 host-side driver contract.

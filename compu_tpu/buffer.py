@@ -4,7 +4,7 @@ Behavioral equivalent of the reference's ``Buffer<const N: usize>``
 (reference: src/buffer.rs:4-49): a fixed byte array plus a cursor. Codecs
 write into the spare region, the user drains ``data()`` and ``consume()``s.
 
-In the TPU framework this is also the shape of the per-host staging driver:
+In the device framework this is also the shape of the per-host staging driver:
 a fixed-size block in, an ordered drain out (see parallel/scheduler.py).
 """
 

@@ -144,7 +144,7 @@ class Interface:
 
     @staticmethod
     def zlib_device(options=None) -> Decoder:
-        """Same format, TPU speculative-resync inflate — the third full
+        """Same format, device speculative-resync inflate — the third full
         decode implementation behind one Interface (reference pattern:
         Interface::zlib_rust, src/decoder/zlib_rust.rs:87-101). Decodes
         arbitrary FOREIGN streams on device (48-entry-phase chunk scan +

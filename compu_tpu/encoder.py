@@ -139,7 +139,7 @@ class Interface:
 
     @staticmethod
     def zlib_device(options=None, block_size=None) -> Encoder:
-        """TPU device implementation of the same deflate format — the
+        """Device implementation of the same deflate format — the
         multi-backend pattern (reference: Interface::zlib_ng,
         src/encoder/zlib_ng.rs:50-87, a second impl of one format behind
         one vtable). Each 256 KiB pipeline block runs the v3 device kernel;

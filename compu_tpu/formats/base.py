@@ -2,7 +2,7 @@
 
 The reference's backends are vtables over opaque native stream objects
 (``decoder::Interface``, src/decoder/mod.rs:160-166; ``encoder::Interface``,
-src/encoder/mod.rs:52-57). In the TPU framework a backend is a *block
+src/encoder/mod.rs:52-57). In this framework a backend is a *block
 pipeline*: the host stages input bytes, cuts them into fixed-shape blocks,
 runs the format's device kernels over the blocks, and drains the produced
 bytes back through the caller's buffers. The streaming status contract
@@ -11,7 +11,7 @@ here; formats implement a small set of hooks.
 
 Design note on buffering: the reference documents that backends may either
 buffer internally (brotli) or wait for output space (zlib)
-(tests/decoder.rs:38-39 comment). The TPU pipelines buffer internally —
+(tests/decoder.rs:38-39 comment). The device pipelines buffer internally —
 device kernels produce whole blocks at once, which the host then drains —
 but the internal buffering is BOUNDED: once undrained output exceeds
 ``pending_high_water``, further input is refused (``input_remain`` reports

@@ -4,7 +4,7 @@ protocol the generic :class:`~compu_tpu.formats.base.DecoderBackend` drives.
 
 This is the framework's SECOND brotli decode implementation — mirroring the
 reference's interchangeable brotli-C / rust-brotli pair behind one vtable
-(/root/reference/src/decoder/brotli_c.rs:22-28 vs brotli.rs:20-26). The
+(reference src/decoder/brotli_c.rs:22-28 vs brotli.rs:20-26). The
 pure-Python decoder (decode.py) stays the reference implementation; this
 native one is the fast host path.
 

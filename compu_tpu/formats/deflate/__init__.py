@@ -2,6 +2,6 @@
 
 The reference reaches this format through three interchangeable backends
 (libz / zlib-ng / zlib-rs — src/encoder/zlib*.rs, src/decoder/zlib*.rs);
-here there is one TPU-first implementation: data-parallel LZ77 match
+here there is one device-first implementation: data-parallel LZ77 match
 finding, package-merge Huffman construction, prefix-sum bit packing, and a
 table-driven decoder, orchestrated by the streaming block pipeline."""

@@ -10,15 +10,14 @@ Decodes ARBITRARY deflate/zlib/gzip streams (no side index) on device:
   back-reference resolution (window history crosses deflate blocks).
 
 This closes the reference's third zlib decode implementation slot
-(/root/reference/src/decoder/zlib_ng.rs:61-91 — a second full decoder
+(reference src/decoder/zlib_ng.rs:61-91 — a second full decoder
 behind one vtable): zlib (pure Python) / zlib_native (C++) / zlib_device
-(TPU) all run the same streaming state-machine contract.
+(device) all run the same streaming state-machine contract.
 
-Honest economics (docs/DEVICE_DECODE.md): the 48x speculation plus the
-per-block sequential header discovery make this slower end-to-end than
-the native host scan on a high-RTT device link; it exists for parity,
-for the single-dispatch-per-16KiB wave structure, and as the foundation
-for merge-retirement optimizations.
+Economics (docs/DEVICE_DECODE.md): the 48x speculation plus the per-block
+sequential header discovery (one host sync per 16 KiB wave) work against
+this path; it exists for parity, for the single-dispatch-per-16KiB wave
+structure, and as the foundation for merge-retirement optimizations.
 """
 
 from __future__ import annotations

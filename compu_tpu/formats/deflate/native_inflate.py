@@ -3,7 +3,7 @@ loop in C++ (csrc/compu_inflate.cpp).
 
 This is the framework's analogue of the reference's zlib-ng backend — a
 second, faster implementation of the SAME format behind the same decoder
-Interface (the multi-backend vtable pattern, /root/reference/src/decoder/
+Interface (the multi-backend vtable pattern, reference src/decoder/
 zlib.rs vs zlib_ng.rs vs zlib_rust.rs). The pure-Python Inflate
 (inflate.py) remains the reference implementation and the fallback when no
 native toolchain exists.

@@ -84,7 +84,7 @@ class DeflateEncoder(EncoderBackend):
 
 
 class _DeviceDeflateStream:
-    """Deflate core on the TPU: each pipeline block runs the v3 device
+    """Deflate core on the device: each pipeline block runs the v3 device
     kernel (dynamic Huffman / fixed / stored by cost), producing a
     self-contained byte-aligned raw-deflate run ending in a sync flush —
     so chunk outputs concatenate into one standard stream. Exposes the
@@ -201,7 +201,7 @@ class NativeDeflateEncoder(DeflateEncoder):
 
 
 class DeviceDeflateEncoder(DeflateEncoder):
-    """TPU-backed deflate encoder behind the SAME product Interface and
+    """Device-backed deflate encoder behind the SAME product Interface and
     state machine as the host backend (the multi-backend vtable pattern:
     reference src/encoder/zlib.rs vs zlib_ng.rs — here host vs device
     implementations of one format). Chunked == one-shot holds because

@@ -15,8 +15,7 @@ import numpy as np
 class DeviceTokenizer:
     """Pads chunks to a fixed block shape and runs the jitted LZ stage.
 
-    One compiled executable per (block_size, max_dist, depth); falls back
-    to the host tokenizer transparently if JAX is unavailable.
+    One compiled executable per (block_size, max_dist, depth).
     """
 
     def __init__(self, block_size: int, max_dist: int, depth: int = 8) -> None:
@@ -32,8 +31,8 @@ class DeviceTokenizer:
         n = len(data)
         padded = np.zeros(self.block_size, dtype=np.uint8)
         padded[:n] = np.frombuffer(data, dtype=np.uint8)
-        # Matches-only D2H (one i64 per match, ~4x fewer bytes over the
-        # high-RTT link); literal tokens are the uncovered gaps. Overflow
+        # Matches-only D2H (one i64 per match, ~4x fewer bytes than the
+        # per-position form); literal tokens are the uncovered gaps. Overflow
         # (count > cap: degenerate min-length covers) falls back to the
         # dense per-position transfer.
         packed, count = device_match_tokens(

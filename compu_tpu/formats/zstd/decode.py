@@ -65,6 +65,8 @@ class ZstdFrameDecoder:
                  device_literals: bool = False) -> None:
         #: decode the 4-stream Huffman literal sections on device
         self.device_literals = device_literals
+        #: literal sections the device decoded (the rest took the host)
+        self.device_literal_sections = 0
         self.window_log_max = window_log_max
         self.sink = bytearray()
         self._reset_stream()
@@ -336,20 +338,21 @@ class ZstdFrameDecoder:
             if self.device_literals and min(counts) > 0:
                 # device 4-stream decode (VERDICT r4 item 8): the four
                 # backward bitstreams decode as independent device lanes;
-                # any malformed-stream signal falls back to the host path
-                from ...kernels.zstd_lit_decode_jax import                     decode_4stream_device
+                # a malformed-stream signal (None) takes the host path,
+                # which raises the format error
+                from ...kernels.zstd_lit_decode_jax import (
+                    decode_4stream_device)
 
                 bodies = []
                 off = 0
                 for sz in sizes:
                     bodies.append(bytes(body[off : off + sz]))
                     off += sz
-                try:
-                    literals = decode_4stream_device(
-                        bodies, counts, table.symbol, table.nbits,
-                        table.max_bits)
-                except Exception:
-                    literals = None
+                literals = decode_4stream_device(
+                    bodies, counts, table.symbol, table.nbits,
+                    table.max_bits)
+                if literals is not None:
+                    self.device_literal_sections += 1
             if literals is None:
                 literals = bytearray()
                 off = 0

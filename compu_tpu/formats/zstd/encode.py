@@ -87,7 +87,7 @@ _ML_SUBLENS = sorted(set(list(range(3, 68)) + [int(b) for b in T.ML_BASE if b <=
 def _parse_effort(level: int):
     """Effort ladder for the high strategies: deeper chain walks + more
     pareto slots (the btopt/btultra analogue; depth is the dominant ratio
-    lever — PLAN.md measurements)."""
+    lever)."""
     if level >= 22:
         return 5, 2048
     if level >= 19:
@@ -190,7 +190,7 @@ def _zstd_optimal_tokens(full: np.ndarray, hist_len: int, level: int,
         # back-to-back-match case); the surplus (nonzero-run codes + extra
         # bits) is amortized over the literals that create those runs.
         # Charging the channel MEAN per match instead overprices matches
-        # and was worth ~1% on text (PLAN.md).
+        # and was worth ~1% on text.
         llc0 = float(llc[0])
         ll_tot = float(np.sum(llc[ll_codes] + T.LL_BITS[ll_codes]))
         lit_extra = max(0.0, (ll_tot - len(seqs) * llc0) / max(len(lits), 1))
@@ -711,7 +711,7 @@ def _sequences_section(seqs, reuse: dict | None = None,
 def _sequences_bitstream_device(seqs, ll_codes, ml_codes, of_codes,
                                 of_values, ll_t, ml_t, of_t):
     """Prepare the per-sequence arrays and run the device FSE scan + pack.
-    Returns None (host fallback) when an offset's extra field exceeds the
+    Returns None (host path) when an offset's extra field exceeds the
     pack's 4-byte lanes (window_log > ~24)."""
     of_xb = [_offset_code(v) for v in of_values]
     if of_xb and max(of_xb) > 24:
@@ -721,10 +721,8 @@ def _sequences_bitstream_device(seqs, ll_codes, ml_codes, of_codes,
     ml_x = [ml - int(T.ML_BASE[c]) for (_, _, ml), c in zip(seqs, ml_codes)]
     ml_xbits = [int(T.ML_BITS[c]) for c in ml_codes]
     of_x = [v - (1 << oc) for v, oc in zip(of_values, of_xb)]
-    try:
-        from ...kernels.zstd_seq_jax import encode_sequences_device
-    except Exception:  # pragma: no cover - jax unavailable
-        return None
+    from ...kernels.zstd_seq_jax import encode_sequences_device
+
     return encode_sequences_device(
         ll_codes, ml_codes, of_codes, ll_x, ml_x, of_x,
         ll_xbits, ml_xbits, of_xb, ll_t.enc, ml_t.enc, of_t.enc)
@@ -857,8 +855,8 @@ class ZstdStreamEncoder:
         if device_lz:
             from ..device_lz import DeviceTokenizer
 
-            # Tokenize 8 frame blocks per device call (one transfer round
-            # trip per MiB instead of per 128 KiB on the high-RTT link);
+            # Tokenize 8 frame blocks per device call (one dispatch and
+            # one transfer round trip per MiB instead of per 128 KiB);
             # compress_chunk slices the token cover per frame block.
             # Matches stay within the window cap, so cross-frame-block
             # distances remain legal zstd (the decoder's window spans

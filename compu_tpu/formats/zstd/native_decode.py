@@ -4,7 +4,7 @@ protocol the generic :class:`~compu_tpu.formats.base.DecoderBackend` drives.
 
 This is the framework's second zstd decode implementation — the reference
 reaches libzstd's native hot loop through its adapter
-(/root/reference/src/decoder/zstd.rs:109-111, ZSTD_decompressStream); here
+(reference src/decoder/zstd.rs:109-111, ZSTD_decompressStream); here
 the pure-Python frame decoder (decode.py) is the reference implementation
 and this native one is the fast host path, the same multi-backend pattern
 as zlib/zlib-native/zlib-device.

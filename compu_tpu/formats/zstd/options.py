@@ -72,7 +72,7 @@ class ZstdOptions:
 class ZstdDecodeOptions:
     """Decoder options (reference: src/decoder/zstd.rs:22-74 — the
     window_log cap is the only knob; device_literals additionally decodes
-    4-stream Huffman literal sections on the TPU,
+    4-stream Huffman literal sections on the device,
     kernels/zstd_lit_decode_jax.py)."""
 
     window_log_max: int = 31

@@ -1,18 +1,15 @@
 """Device block-codec steps for the block-parallel scheduler.
 
-Transfer discipline (the design constraint on high-latency device links,
-and good hygiene on any link):
+Transfer discipline:
 
-* ONE bulk H2D of the block matrix;
-* per-block async kernel dispatch (vmap/scan lowering of the scatter-heavy
-  encode graph is pathologically slow on TPU — per-block dispatch measured
-  ~0.2 ms/block regardless of content);
-* metadata returned as small arrays, never scalars (per-scalar buffer
-  syncs are catastrophic on high-RTT runtimes);
+* ONE bulk H2D of the block matrix (or one per pipelined group);
+* one jitted dispatch per batch: the block kernel runs over the whole
+  (B, N) matrix, so a batch costs one dispatch instead of B;
+* metadata returned as small arrays, fetched in one transfer;
 * device-side compaction of the padded per-block outputs into one
-  exact-length byte buffer (sequential dynamic_update_slice — later blocks
-  overwrite the previous block's padding overhang), so D2H is ONE transfer
-  of the actual compressed bytes.
+  byte buffer (sequential dynamic_update_slice — later blocks overwrite
+  the previous block's padding overhang), so D2H is ONE transfer of the
+  compressed bytes, rounded up to a whole block cap.
 """
 
 from __future__ import annotations
@@ -26,12 +23,10 @@ import jax.numpy as jnp
 
 from ..formats.deflate.options import ZlibMode
 from ..ops import checksum
-from .checksum_jax import crc32_lane_registers
-from .deflate_jax import encode_block_fixed
 from .deflate_jax_v2 import encode_block_fixed_v2
-from .deflate_jax_v3 import encode_block_dyn
 
-# level -> (depth, nice, lazy) for the v1 kernel ladder.
+# level -> (depth, nice, lazy): the host-ladder depth also caps the v2
+# kernel's and the streaming device encoder's (formats/deflate/pipeline.py).
 _LEVEL = {
     1: (1, 8, False),
     2: (2, 16, False),
@@ -45,26 +40,6 @@ _LEVEL = {
 }
 
 
-@functools.partial(jax.jit, static_argnames=("cap",))
-def _compact(stacked: jnp.ndarray, lens: jnp.ndarray, *, cap: int) -> jnp.ndarray:
-    """Pack B padded blocks (B, cap) into one contiguous buffer.
-
-    Block i lands at offset sum(lens[:i]); each dynamic_update_slice writes
-    its full cap window, and the next block's write overwrites the overhang,
-    so the result prefix is exactly the concatenated compressed bytes.
-    """
-    B = stacked.shape[0]
-    offsets = jnp.concatenate(
-        [jnp.zeros(1, jnp.int32), jnp.cumsum(lens.astype(jnp.int32))[:-1]]
-    )
-    buf = jnp.zeros(B * cap + cap, dtype=jnp.uint8)
-
-    def body(i, buf):
-        return jax.lax.dynamic_update_slice(buf, stacked[i], (offsets[i],))
-
-    return jax.lax.fori_loop(0, B, body, buf)
-
-
 @functools.partial(
     jax.jit, static_argnames=("depth", "cap", "with_index", "check", "kernel",
                               "wcap", "matcher", "stride", "lex_keys")
@@ -74,11 +49,10 @@ def _encode_blocks_batched(blocks: jnp.ndarray, lens: jnp.ndarray, *, depth: int
                            kernel: str = "v3", wcap: int = 32,
                            matcher: str = "lex", stride: int = 1,
                            lex_keys: int = 2):
-    """One jit over the whole (B, N) block matrix: lax.map of the block
-    kernel plus the compaction, so a batch costs ONE dispatch instead of
-    B+1. (These graphs lax.map cleanly — PLAN.md; the scatter-heavy v1
-    does not.) ``kernel`` picks v3 (dynamic/fixed/stored block types) or
-    v2 (fixed-Huffman only).
+    """One jit over the whole (B, N) block matrix: the block kernel plus
+    the compaction, so a batch costs ONE dispatch instead of B+1.
+    ``kernel`` picks v3 (dynamic/fixed/stored block types) or v2
+    (fixed-Huffman only).
     Returns (packed u8[B*cap+cap], metas i32[B,2], segs|None)."""
     if kernel == "v3":
         # Staged batched kernel: token scan / emit lax.map over blocks,
@@ -99,17 +73,7 @@ def _encode_blocks_batched(blocks: jnp.ndarray, lens: jnp.ndarray, *, depth: int
                 lex_keys=lex_keys,
             )
             segs = None
-        B = blocks.shape[0]
-        offsets = jnp.concatenate(
-            [jnp.zeros(1, jnp.int32), jnp.cumsum(metas[:, 0].astype(jnp.int32))[:-1]]
-        )
-        buf = jnp.zeros(B * cap + cap, dtype=jnp.uint8)
-
-        def body(i, buf):
-            return jax.lax.dynamic_update_slice(buf, outs[i], (offsets[i],))
-
-        packed = jax.lax.fori_loop(0, B, body, buf)
-        return packed, metas, segs
+        return _compact(outs, metas, cap), metas, segs
 
     block_kernel = encode_block_fixed_v2
 
@@ -124,20 +88,28 @@ def _encode_blocks_batched(blocks: jnp.ndarray, lens: jnp.ndarray, *, depth: int
     else:
         outs, metas = jax.lax.map(one, (blocks, lens))
         segs = None
-    B = blocks.shape[0]
-    offsets = jnp.concatenate(
-        [jnp.zeros(1, jnp.int32), jnp.cumsum(metas[:, 0].astype(jnp.int32))[:-1]]
-    )
-    buf = jnp.zeros(B * cap + cap, dtype=jnp.uint8)
-
-    def body(i, buf):
-        return jax.lax.dynamic_update_slice(buf, outs[i], (offsets[i],))
-
-    packed = jax.lax.fori_loop(0, B, body, buf)
-    return packed, metas, segs
+    return _compact(outs, metas, cap), metas, segs
 
 
-def make_block_encode_fn(mode: ZlibMode, level: int = 6, crc_lanes: int = 1024,
+def _compact(outs: jnp.ndarray, metas: jnp.ndarray, cap: int) -> jnp.ndarray:
+    """Pack B padded block outputs (B, cap) into one contiguous buffer:
+    block i lands at sum(lens[:i]); each write covers its full cap window
+    and the next block's write overwrites the overhang, so the prefix is
+    exactly the concatenated compressed bytes."""
+    B = outs.shape[0]
+    with jax.named_scope("compaction"):
+        offsets = jnp.concatenate(
+            [jnp.zeros(1, jnp.int32),
+             jnp.cumsum(metas[:, 0].astype(jnp.int32))[:-1]])
+        buf = jnp.zeros(B * cap + cap, dtype=jnp.uint8)
+
+        def body(i, buf):
+            return jax.lax.dynamic_update_slice(buf, outs[i], (offsets[i],))
+
+        return jax.lax.fori_loop(0, B, body, buf)
+
+
+def make_block_encode_fn(mode: ZlibMode, level: int = 6,
                          kernel: str = "v3", segment_index: bool = False,
                          pipeline_groups: int = 1):
     """Returns ``fn(blocks u8[B,N], lens i32[B]) -> (outs: list[np.uint8],
@@ -145,16 +117,17 @@ def make_block_encode_fn(mode: ZlibMode, level: int = 6, crc_lanes: int = 1024,
     (gzip) of each block — the contract BlockParallelEncoder expects.
 
     ``kernel='v3'`` (default) adds per-block dynamic-Huffman trees and
-    stored blocks to the gather-minimal sort/MXU kernel; ``'v2'`` is the
-    fixed-Huffman-only variant; ``'v1'`` keeps the chain-walk kernel
-    (closer to the host ladder, much slower on TPU)."""
-    depth, nice, lazy = _LEVEL[max(1, min(9, level))]
-    # Device ladder for the r5 lex/LCP matcher (lcp_match.py): the
+    stored blocks to the gather-minimal sort/matmul kernel; ``'v2'`` is
+    the fixed-Huffman-only variant."""
+    if kernel not in ("v2", "v3"):
+        raise ValueError(f"unknown device kernel {kernel!r}")
+    depth = _LEVEL[max(1, min(9, level))][0]
+    # Device ladder for the lex/LCP matcher (lcp_match.py): the
     # adjacent-LCP composition makes small depths match hash-scan-32
-    # quality (measured on the 4 MB bench slice: lex keys2 d16 29.2 ms
-    # ratio 3.960 vs hash d32 33.3 ms ratio 3.942). Fast levels add
-    # stride-2 anchor sampling (halves sort/candidate elements at ~13%
-    # ratio cost — the zlib-fast tradeoff).
+    # quality (on the 4 MB bench slice: lex keys2 d16 ratio 3.960 vs hash
+    # d32 ratio 3.942). Fast levels add stride-2 anchor sampling (halves
+    # sort/candidate elements at ~13% ratio cost — the zlib-fast
+    # tradeoff).
     dev_wcap = {1: 8, 2: 8, 3: 8, 4: 16, 5: 16, 6: 16, 7: 16, 8: 16, 9: 16}
     dev_depth = {1: 4, 2: 6, 3: 8, 4: 8, 5: 12, 6: 16, 7: 24, 8: 32, 9: 48}
     dev_keys = {1: 1, 2: 1, 3: 1, 4: 1, 5: 2, 6: 2, 7: 2, 8: 2, 9: 2}
@@ -166,97 +139,35 @@ def make_block_encode_fn(mode: ZlibMode, level: int = 6, crc_lanes: int = 1024,
     vstride = dev_stride[lvl]
 
     check = "crc" if mode is ZlibMode.Gzip else "adler"
-
-    def encode_one(block, n):
-        # Fixed-Huffman worst case is 9 bits/byte (+ tiny block overhead),
-        # so N + N//4 capacity is safe and trims the D2H transfer.
-        cap = block.shape[0] + block.shape[0] // 4 + 64
-        if kernel == "v3":
-            return encode_block_dyn(
-                block, n, depth=vdepth, cap=cap,
-                with_index=segment_index, check=check, wcap=wcap,
-                lex_keys=vkeys, stride=vstride,
-            )
-        if kernel == "v2":
-            return encode_block_fixed_v2(
-                block, n, depth=min(depth, 8), cap=cap,
-                with_index=segment_index, check=check,
-            )
-        assert not segment_index, "segment index requires the v2/v3 kernels"
-        return encode_block_fixed(block, n, depth=depth, nice=nice, lazy=lazy, cap=cap)
+    kdepth = vdepth if kernel == "v3" else min(depth, 8)
 
     def fn(blocks: np.ndarray, lens: np.ndarray):
         import time as _time
 
         t_start = _time.perf_counter()
         B, N = blocks.shape
+        # Fixed-Huffman worst case is 9 bits/byte (+ tiny block overhead),
+        # so N + N//4 capacity is safe and trims the D2H transfer.
         cap = N + N // 4 + 64
-        v1_gzip = kernel not in ("v2", "v3") and mode is ZlibMode.Gzip
-        crc_futs = []
-        group_caps = None
-        if kernel in ("v2", "v3"):
-            G = pipeline_groups if (pipeline_groups > 1 and B % pipeline_groups == 0
-                                    and B >= 2 * pipeline_groups) else 1
-            if G > 1:
-                # Pipelined groups: group g's dispatch overlaps group g+1's
-                # H2D upload (both async; the runtime orders per-buffer).
-                gb = B // G
-                lens_j = jnp.asarray(lens, jnp.int32)
-                dev = jax.device_put(blocks[:gb])
-                parts = []
-                for g in range(G):
-                    part = _encode_blocks_batched(
-                        dev, lens_j[g * gb : (g + 1) * gb],
-                        depth=vdepth if kernel == "v3" else min(depth, 8),
-                        cap=cap,
-                        with_index=segment_index, check=check, kernel=kernel,
-                        wcap=wcap, lex_keys=vkeys, stride=vstride,
-                    )
-                    parts.append(part)
-                    if g + 1 < G:
-                        dev = jax.device_put(blocks[(g + 1) * gb : (g + 2) * gb])
-                packed = jnp.concatenate([p[0] for p in parts])
-                meta_stack = jnp.concatenate([p[1] for p in parts])
-                seg_stack = (jnp.concatenate([p[2] for p in parts])
-                             if segment_index else None)
-                # group-local offsets -> global packing handled at host
-                # assembly below via per-group flattening
-                group_caps = [p[0].shape[0] for p in parts]
-            else:
-                blocks_dev = jax.device_put(blocks)  # one bulk upload
-                packed, meta_stack, seg_stack = _encode_blocks_batched(
-                    blocks_dev, jnp.asarray(lens, jnp.int32),
-                    depth=vdepth if kernel == "v3" else min(depth, 8),
-                    cap=cap, with_index=segment_index,
-                    check=check, kernel=kernel, wcap=wcap,
-                    lex_keys=vkeys, stride=vstride,
-                )
-                group_caps = None
-            seg_futs = [seg_stack] if segment_index else []
-        else:
-            outs, metas, seg_futs = [], [], []
-            for i in range(B):
-                r = encode_one(blocks_dev[i], jnp.int32(int(lens[i])))
-                if segment_index:
-                    o, m, segs = r
-                    seg_futs.append(segs)
-                else:
-                    o, m = r
-                outs.append(o)
-                metas.append(m)
-                if v1_gzip:  # v1 computes adler only; gzip needs lane crc
-                    crc_futs.append(
-                        crc32_lane_registers(blocks_dev[i], lanes=crc_lanes)
-                    )
-            meta_stack = jnp.stack(metas)  # (B, 2) on device
-            if segment_index:
-                seg_futs = [jnp.stack(seg_futs)]
-            # Device-side compaction (device lens — no host dependency), then
-            # ONE small fetch (meta + segment index) and ONE exact-size D2H.
-            packed = _compact(jnp.stack(outs), meta_stack[:, 0], cap=cap)
-        small = [meta_stack.reshape(-1)]
+        G = pipeline_groups if (pipeline_groups > 1 and B % pipeline_groups == 0
+                                and B >= 2 * pipeline_groups) else 1
+        # Pipelined groups: group g's dispatch overlaps group g+1's H2D
+        # upload (both async; the runtime orders per-buffer).
+        gb = B // G
+        lens_j = jnp.asarray(lens, jnp.int32)
+        dev = jax.device_put(blocks[:gb])
+        parts = []
+        for g in range(G):
+            parts.append(_encode_blocks_batched(
+                dev, lens_j[g * gb : (g + 1) * gb], depth=kdepth, cap=cap,
+                with_index=segment_index, check=check, kernel=kernel,
+                wcap=wcap, lex_keys=vkeys, stride=vstride,
+            ))
+            if g + 1 < G:
+                dev = jax.device_put(blocks[(g + 1) * gb : (g + 2) * gb])
+        small = [p[1].reshape(-1) for p in parts]
         if segment_index:
-            small.append(seg_futs[0].reshape(-1))
+            small += [p[2].reshape(-1) for p in parts]
         t_dispatched = _time.perf_counter()
         small_h = np.asarray(jnp.concatenate(small))  # sync 1 (small)
         t_meta = _time.perf_counter()
@@ -266,42 +177,26 @@ def make_block_encode_fn(mode: ZlibMode, level: int = 6, crc_lanes: int = 1024,
         seg_index = (
             small_h[2 * B :].reshape(B, -1).astype(np.int32) if segment_index else None
         )
-        if kernel in ("v2", "v3") and group_caps is not None:
-            # Grouped packing: each group's buffer holds its own compacted
-            # prefix; fetch exact per-group prefixes (transfers pipeline).
-            G = len(group_caps)
-            gb = B // G
-            flats = []
-            start = 0
-            for g in range(G):
-                tg = int(out_lens[g * gb : (g + 1) * gb].sum())
-                flats.append(np.asarray(packed[start : start + tg]))
-                start += group_caps[g]
-            flat = np.concatenate(flats)
-        else:
-            total = int(out_lens.sum())
-            flat = np.asarray(packed[:total])  # sync 2 (exact bytes)
+        # Each group's buffer holds its own compacted prefix; fetch it
+        # (sync 2: the compressed bytes). The slice length is rounded up
+        # to whole block caps: every distinct static slice size is a new
+        # executable, and an exact size would compile once per call.
+        flat = np.concatenate([
+            np.asarray(p[0][: -(-tg // cap) * cap])[:tg]
+            for p, tg in zip(parts, (int(out_lens[g * gb : (g + 1) * gb].sum())
+                                     for g in range(G)))])
         t_payload = _time.perf_counter()
         offsets = np.concatenate([[0], np.cumsum(out_lens)])
         out = [flat[offsets[i] : offsets[i + 1]] for i in range(B)]
         if mode is ZlibMode.Gzip:
-            if v1_gzip:
-                regs = np.asarray(jnp.stack(crc_futs))
-                lane_bytes = N // crc_lanes
-                crcs = np.empty(B, dtype=np.uint32)
-                for i in range(B):
-                    reg = checksum.fold_lane_registers(regs[i], lane_bytes)
-                    reg = checksum.crc_unshift(reg, N - int(lens[i]))
-                    crcs[i] = reg ^ 0xFFFFFFFF
-            else:
-                # meta carries the raw init-0 register of the padded block:
-                # fold in the init register, strip the pad, finalize.
-                front = checksum.crc_shift(0xFFFFFFFF, N)
-                crcs = np.empty(B, dtype=np.uint32)
-                for i in range(B):
-                    reg = front ^ int(checks[i])
-                    reg = checksum.crc_unshift(reg, N - int(lens[i]))
-                    crcs[i] = reg ^ 0xFFFFFFFF
+            # meta carries the raw init-0 register of the padded block:
+            # fold in the init register, strip the pad, finalize.
+            front = checksum.crc_shift(0xFFFFFFFF, N)
+            crcs = np.empty(B, dtype=np.uint32)
+            for i in range(B):
+                reg = front ^ int(checks[i])
+                reg = checksum.crc_unshift(reg, N - int(lens[i]))
+                crcs[i] = reg ^ 0xFFFFFFFF
             checks = crcs
         # per-call transfer/compute budget for the bench's e2e breakdown
         # (h2d+dispatch are async-overlapped; sync_meta is the first point
@@ -319,14 +214,3 @@ def make_block_encode_fn(mode: ZlibMode, level: int = 6, crc_lanes: int = 1024,
         return out, out_lens, checks
 
     return fn
-
-
-@functools.lru_cache(maxsize=None)
-def warm(block_size: int = 1 << 18, level: int = 6) -> None:
-    """Pre-compile the block kernels for a given shape."""
-    depth, nice, lazy = _LEVEL[max(1, min(9, level))]
-    data = jnp.zeros(block_size, dtype=jnp.uint8)
-    cap = block_size + block_size // 4 + 64
-    encode_block_fixed(
-        data, jnp.int32(block_size), depth=depth, nice=nice, lazy=lazy, cap=cap
-    )[0].block_until_ready()

@@ -1,6 +1,6 @@
 """Device checksum kernels (JAX/XLA path).
 
-crc32 — the MXU formulation: a CRC register is a GF(2)-linear function of
+crc32 — the matmul formulation: a CRC register is a GF(2)-linear function of
 the input bits, so the raw register of every lane is one dense matmul:
 
     bits(lanes, 8c) @ A(8c, 32)  mod 2
@@ -9,7 +9,7 @@ where column k of ``A`` is the register contribution of input bit j (the
 CRC of a buffer with only that bit set — precomputed on host, cached per
 lane size). 0/1 values are exact in bf16/f32 and the f32 accumulator is
 exact below 2^24 terms, so the parity is exact. This replaces a
-256-entry-table gather loop (which XLA compiles poorly on TPU) with pure
+256-entry-table gather loop with pure
 systolic-array work — the idiomatic mapping.
 
 Lane merging + pad stripping stay on host via the GF(2) algebra
@@ -55,7 +55,7 @@ def _crc_bit_matrix(c: int) -> np.ndarray:
 @functools.partial(jax.jit, static_argnames=("lanes",))
 def crc32_lane_registers(block: jnp.ndarray, *, lanes: int = 1024) -> jnp.ndarray:
     """Raw CRC registers (init 0) of ``lanes`` contiguous equal slices of a
-    fixed-size block, via one MXU matmul. Block size divisible by lanes."""
+    fixed-size block, via one matmul. Block size divisible by lanes."""
     n = block.shape[0]
     c = n // lanes
     a = jnp.asarray(_crc_bit_matrix(c))  # (8c, 32)

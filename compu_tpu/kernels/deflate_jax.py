@@ -1,4 +1,4 @@
-"""Jittable DEFLATE block encoder (the TPU compute path).
+"""Jittable DEFLATE block encoder (v1, the chain-walk formulation).
 
 One call = one fixed-shape device block (padded to ``block_cap`` bytes,
 actual length a scalar). The whole pipeline stays inside a single jit:
@@ -73,7 +73,7 @@ def _u32_view(data: jnp.ndarray, pad: int) -> jnp.ndarray:
 
 def _match_lengths_dense(u32, pos, cand, limit, active0):
     """Common-prefix lengths via 4-byte XOR steps, dense masks (no
-    compaction — the TPU-friendly formulation), early exit by while_loop."""
+    compaction — the dense formulation), early exit by while_loop."""
     n = pos.shape[0]
 
     def cond(state):

@@ -4,12 +4,11 @@ device (no host round trip for table building).
 
 v2 (deflate_jax_v2.py) emits fixed-Huffman only, forfeiting ~0.5x ratio on
 mixed corpora (VERDICT r1 item: bench ratio 2.13x vs stock 2.8x). v3 keeps
-v2's LZ stage (sort-carried matching + MXU segment parse) and matmul bit
+v2's LZ stage (sort-carried matching + matmul segment parse) and matmul bit
 packing, and adds:
 
 1. *Device histogramming*: per-block lit/len (286) and dist (30) symbol
-   frequencies via scatter-add (cheap on this runtime — measured ~30 us
-   for 256K updates).
+   frequencies as one-hot matmuls (``_hist_mxu``).
 2. *Device canonical Huffman builder* (``build_lengths``): code lengths =
    clamp(ceil(-log2 p), 1, cap), which satisfies Kraft <= 1 by
    construction; a bounded argmax loop lengthens codes if the cap clamp
@@ -33,14 +32,13 @@ block-parallel scheduler (parallel/scheduler.py) consumes either kernel.
 
 Reference parity: this implements deflate's dynamic-block emission
 (RFC1951 §3.2.7) that the reference reaches through libz's deflate
-(/root/reference/src/encoder/zlib.rs:90-92); block-type choice mirrors
+(reference src/encoder/zlib.rs:90-92); block-type choice mirrors
 zlib's compress_block cost comparison.
 """
 
 from __future__ import annotations
 
 import functools
-import os
 
 import numpy as np
 
@@ -207,7 +205,7 @@ def _stored_block(data: jnp.ndarray, n: jnp.ndarray, cap: int) -> tuple:
     Chunk starts are STATIC (only the last chunk is partial, and it sits
     at the same static offset), so the buffer is a static concat of
     [5-byte header, data slice] pieces with a dense j < total mask — no
-    element gather (a 330K-element gather costs ~3 ms on TPU)."""
+    element gather."""
     N = data.shape[0]
     CH = 65535
     pieces = []
@@ -234,11 +232,11 @@ def _stored_block(data: jnp.ndarray, n: jnp.ndarray, cap: int) -> tuple:
 # ---------------------------------------------------------------------------
 
 def _hist_mxu(sym: jnp.ndarray, mask: jnp.ndarray, nbins: int) -> jnp.ndarray:
-    """Masked histogram as ONE MXU matmul: split the bin index into
+    """Masked histogram as ONE matmul: split the bin index into
     (q, r) = (sym >> 4, sym & 15) and contract two one-hot factors over
     the position axis — hist2d[q, r] = sum_i mask_i [q_i==q][r_i==r].
-    Counts accumulate exactly in f32 (<= 2^24). A direct scatter-add costs
-    ~2.3 ms per 256K updates on TPU (~10 ns/elem); this form is dense."""
+    Counts accumulate exactly in f32 (<= 2^24). A scatter-add computes the
+    same histogram; which is faster per device is an open measurement."""
     Q = (nbins + 15) // 16
     q = sym >> 4
     r = sym & 15
@@ -368,11 +366,10 @@ def _build_tables(lit_freq, dist_freq, extra_l_bits, extra_d_bits, n):
 
 def _lookup2_mxu(sym: jnp.ndarray, t0: jnp.ndarray, t1: jnp.ndarray,
                  nbins: int):
-    """Paired table lookup (t0[sym], t1[sym]) as one small MXU matmul plus
+    """Paired table lookup (t0[sym], t1[sym]) as one small matmul plus
     a masked sum: bin = 16q + r factors the one-hot, so the gather becomes
     A(N, Q) @ T(Q, 32) followed by an r-select. Table values < 2^24 are
-    exact in f32. A direct 256K-element gather costs ~0.5-2 ms on TPU even
-    from a 286-entry table; this form is dense."""
+    exact in f32 at HIGHEST precision."""
     q_bins = (nbins + 15) // 16
     pad = q_bins * 16
     tt = jnp.stack([
@@ -383,9 +380,10 @@ def _lookup2_mxu(sym: jnp.ndarray, t0: jnp.ndarray, t1: jnp.ndarray,
     r = sym & 15
     a = (q[:, None] == jnp.arange(q_bins, dtype=jnp.int32)[None, :]
          ).astype(jnp.float32)
-    # HIGHEST: TPU f32 matmuls default to a bf16 decomposition that is not
-    # exact for 15-bit integer table values; the one-hot contraction must
-    # reproduce them bit-exactly.
+    # HIGHEST: default-precision f32 matmuls may round their operands
+    # (bf16 passes, or TF32 on GPU tensor cores), which is not exact for
+    # 15-bit integer table values; the one-hot contraction must reproduce
+    # them bit-exactly.
     m = jnp.dot(a, tt, preferred_element_type=jnp.float32,
                 precision=jax.lax.Precision.HIGHEST).reshape(-1, 16, 2)
     b = r[:, None] == jnp.arange(16, dtype=jnp.int32)[None, :]
@@ -393,9 +391,45 @@ def _lookup2_mxu(sym: jnp.ndarray, t0: jnp.ndarray, t1: jnp.ndarray,
     return v[:, 0], v[:, 1]
 
 
+W2 = 512  # emit row width in bytes (segment content + fine byte offset)
+
+
+def emit_pack_xla(bytep: jnp.ndarray, shifted: jnp.ndarray) -> jnp.ndarray:
+    """(S, 256) segment-local byte positions + shifted field values ->
+    (S, 32, 32) packed tiles: entry (q, r') holds the sum of byte
+    contributions to byte p = 16q + r'. The 4 byte lanes of each field
+    fold into the r factor as r' = (p & 15) + lane < 19 < 32, so one
+    (S, 256, 32) factor carries them all (see rows_from_tiles)."""
+    S = bytep.shape[0]
+    q = bytep >> 4
+    r = bytep & 15
+    qcols = jnp.arange(32, dtype=jnp.int32)
+    a = (q[:, :, None] == qcols[None, None, :]).astype(jnp.bfloat16)
+    b = jnp.zeros((S, bytep.shape[1], 32), jnp.bfloat16)
+    su = shifted.astype(jnp.uint32)
+    for k in range(4):
+        byte_k = ((su >> jnp.uint32(8 * k)) & jnp.uint32(0xFF)).astype(
+            jnp.bfloat16)
+        rk = r + k
+        b = b + (rk[:, :, None] == qcols[None, None, :]).astype(jnp.bfloat16) \
+            * byte_k[:, :, None]
+    out = jnp.einsum("sfq,sfr->sqr", a, b,
+                     preferred_element_type=jnp.float32)
+    return out.astype(jnp.int32)
+
+
+def rows_from_tiles(tiles: jnp.ndarray) -> jnp.ndarray:
+    """(S, 32, 32) packed tiles -> (S, W2) byte rows: p = 16q + r', the
+    upper r' half lands 16 bytes later."""
+    S = tiles.shape[0]
+    lo = tiles[:, :, :16].reshape(S, W2)
+    hi = tiles[:, :, 16:].reshape(S, W2)
+    return lo + jnp.pad(hi[:, : W2 - 16], ((0, 0), (16, 0)))
+
+
 def _emit(data, n, tok, tables, *, cap, with_index):
     """Stage 3: map tokens through the code tables, pack bits via a
-    segment-local one-hot einsum (MXU), shift rows to their global bit
+    segment-local one-hot einsum, shift rows to their global bit
     phase, lay them down with ascending dynamic_update_slice writes, and
     add boundary bytes / header / EOB with one tiny scatter-add;
     stored-block override by dense select.
@@ -404,10 +438,9 @@ def _emit(data, n, tok, tables, *, cap, with_index):
     factors as (q, r) = (p >> 4, p & 15), and the packed rows come from
     one einsum contracting two narrow one-hots — 16-wide q one-hot and a
     (16x4)-wide r-one-hot x byte-lane-value factor — instead of a 256-wide
-    one-hot (~4x less HBM traffic) or full-buffer scatter-adds (512K-update
-    scatters measured ~2-10 ms each; the whole scatter emit was ~38 ms per
-    16-block batch). Adjacent fields share bytes but never bits, so the
-    f32 sums are exact (<= 255 per byte)."""
+    one-hot (~4x less memory traffic) or full-buffer scatter-adds.
+    Adjacent fields share bytes but never bits, so the f32 sums are exact
+    (<= 255 per byte)."""
     N = data.shape[0]
     lit_len, lit_code = tables["lit_len"], tables["lit_code"]
     dist_len, dist_code = tables["dist_len"], tables["dist_code"]
@@ -445,7 +478,6 @@ def _emit(data, n, tok, tables, *, cap, with_index):
 
     S = N // SEG
     W = 256   # max row content bytes per segment (worst case 223)
-    W2 = 512  # row width incl. the fine (intra-slot) byte offset
 
     # --- field positions: segment-local bits + fine byte offset -------------
     # Each segment's fields land in a W2-wide row at byte
@@ -470,28 +502,14 @@ def _emit(data, n, tok, tables, *, cap, with_index):
     shifted = jnp.where(fbits > 0, fvals << (floc & 7).astype(jnp.uint32), 0)
     bytep = jnp.clip((floc >> 3) + fine[:, None], 0, W2 - 1)   # (S, 2*SEG)
 
-    # --- q/r-split one-hot pack on the MXU -----------------------------------
+    # --- q/r-split one-hot pack ---------------------------------------------
     # A byte position p < 512 factors as (q, r') = (p >> 4, (p & 15) + lane);
-    # the packed tiles come from ONE contraction of two narrow one-hots.
-    # The Pallas kernel (emit_pallas.py) builds both one-hots in VMEM —
-    # the XLA einsum form materializes ~1.5 GB of one-hot factors through
-    # HBM per 16-block batch and measured ~3.9 ms. Byte values <= 255 are
-    # exact in bf16; per-byte sums <= 255 (bit-disjoint) are exact in f32.
-    from .emit_pallas import emit_pack_pallas, emit_pack_xla, rows_from_tiles
-
-    # Pallas emit measured SLOWER end-to-end than the XLA einsum (the
-    # small per-block grids under lax.map dispatch ~4k tiny steps);
-    # COMPU_EMIT=pallas keeps the kernel for A/B. Note: wrapping
+    # the packed tiles come from ONE contraction of two narrow one-hots
+    # (emit_pack_xla). Byte values <= 255 are exact in bf16; per-byte sums
+    # <= 255 (bit-disjoint) are exact in f32. Note: wrapping
     # encode_blocks_dyn in another jit DCEs the emit when only metas are
     # consumed — time it through the unwrapped jit only.
-    use_pallas = (jax.default_backend() != "cpu"
-                  and os.environ.get("COMPU_EMIT") == "pallas"
-                  and SEG == 128 and S % 8 == 0)
-    if use_pallas:
-        tiles = emit_pack_pallas(bytep, shifted)
-    else:
-        tiles = emit_pack_xla(bytep, shifted)
-    row = rows_from_tiles(tiles)
+    row = rows_from_tiles(emit_pack_xla(bytep, shifted))
 
     # --- shift rows to their global bit phase --------------------------------
     rphase = (seg_bit0 & 7)[:, None]
@@ -609,19 +627,16 @@ def encode_blocks_dyn(blocks: jnp.ndarray, lens: jnp.ndarray, *, depth: int = 8,
                       stride: int = 1, lex_keys: int = 2):
     """Batched v3 encode over a (B, N) block matrix — the throughput path.
 
-    Stage split matters on TPU: the token scan and the bit-pack lax.map
-    over blocks (big per-block arrays, graphs that map cleanly), but the
-    tree builder VMAPs over the block axis — its bounded Kraft-fill loops
-    are ~80 sequential steps of tiny (286-wide) ops, which under lax.map
-    would serialize per block (~milliseconds x B) but under vmap run once
-    as (B, 286) steps."""
+    The bit-pack lax.maps over blocks (big per-block arrays), but the tree
+    builder VMAPs over the block axis — its bounded Kraft-fill loops are
+    ~80 sequential steps of tiny (286-wide) ops, which under lax.map would
+    serialize per block but under vmap run once as (B, 286) steps."""
     B, N = blocks.shape
     if cap == 0:
         cap = N + N // 4 + 64
 
-    # Match+cover run at the batch level (the Pallas matcher/cover take
-    # the flattened batch; vmap of ANY-memory-space pallas_call is
-    # unsupported); the elementwise token/histogram stage vmaps.
+    # Match+cover run at the batch level (match_and_parse_batch); the
+    # elementwise token/histogram stage vmaps.
     is_tok_b, bl_b, bd_b = match_and_parse_batch(
         blocks, lens, depth=depth, clip_seg=with_index, wcap=wcap,
         matcher=matcher, cover_seg=cover_seg, stride=stride,
@@ -635,15 +650,18 @@ def encode_blocks_dyn(blocks: jnp.ndarray, lens: jnp.ndarray, *, depth: int = 8,
         chk = _block_checksum(data, n, check)
         return tok, lf, df, xl, xd, chk
 
-    tok, lf, df, xl, xd, chks = jax.vmap(stage1)(
-        blocks, lens, is_tok_b, bl_b, bd_b)
-    tables = jax.vmap(_build_tables)(lf, df, xl, xd, lens)
+    with jax.named_scope("tok_hist_checksum"):
+        tok, lf, df, xl, xd, chks = jax.vmap(stage1)(
+            blocks, lens, is_tok_b, bl_b, bd_b)
+    with jax.named_scope("tree_build"):
+        tables = jax.vmap(_build_tables)(lf, df, xl, xd, lens)
 
     def stage3(args):
         data, n, tok_b, tables_b = args
         return _emit(data, n, tok_b, tables_b, cap=cap, with_index=with_index)
 
-    res = jax.lax.map(stage3, (blocks, lens, tok, tables))
+    with jax.named_scope("emit"):
+        res = jax.lax.map(stage3, (blocks, lens, tok, tables))
     if with_index:
         outs, out_lens, seg_bits = res
         metas = jnp.stack([out_lens.astype(jnp.int32),

@@ -2,7 +2,7 @@
 
 The v2 encoder's parse restarts at every SEG-byte output segment, so each
 segment's first token begins at a known bit offset (exported via
-``with_index``). Decode then runs one VPU lane per segment in lockstep:
+``with_index``). Decode then runs one vector lane per segment in lockstep:
 
 * phase 1 — token scan: every active lane decodes one token per step
   (a 32-bit funnel-shift window from two u32 gathers serves both the
@@ -80,7 +80,7 @@ _DIST_ATTRS = _dist_attr_table()
 
 def _onehot_lookup(idx: jnp.ndarray, table: jnp.ndarray) -> jnp.ndarray:
     """(S,) indices -> (S, A) attribute rows. At lane counts (~2k) a plain
-    gather beats one-hot construction cost; swap to the one-hot MXU form
+    gather beats one-hot construction cost; swap to the one-hot matmul form
     if lane counts grow to where gathers dominate."""
     return table[idx]
 
@@ -207,6 +207,13 @@ def decode_blocks_indexed(comps: jnp.ndarray, seg_bits: jnp.ndarray, ns: jnp.nda
     return _expand_and_resolve(t_rec, lane, ns, ok, B=B, N=N, S=S)
 
 
+def rel_mod(rel: jnp.ndarray, dist: jnp.ndarray) -> jnp.ndarray:
+    """Offset of output position ``rel`` (from its token's start) inside
+    the token's repeating source window of period ``dist`` (>= 1): integer
+    floor-mod, so the result lies in [0, dist) for any sign of ``rel``."""
+    return jnp.remainder(rel, dist)
+
+
 def _expand_and_resolve(t_rec, lane, ns, ok, *, B, N, S, R=SEG):
     """Shared phases 2+3 of indexed decode: token-id expansion (slot
     scatter + running max), then pointer-doubling back-reference
@@ -246,14 +253,7 @@ def _expand_and_resolve(t_rec, lane, ns, ok, *, B, N, S, R=SEG):
     # comes from the slot id, not from the position).
     start_of = ((tokid_flat // R) * SEG
                 + (rec_of & jnp.uint32(0x1FF)).astype(jnp.int32))
-    rel = gp - start_of
-    # rel < 258 and dist >= 1, so rel mod dist is exact in f32: exact
-    # integer quotients divide exactly (IEEE correct rounding), and
-    # non-integer quotients sit >= 1/dist >= 2^-15 from the nearest
-    # integer while the rounding error is <= ulp(258)/2 < 2^-16. Integer
-    # mod lowers poorly on the VPU.
-    q = jnp.floor(rel.astype(jnp.float32) / dist_of.astype(jnp.float32))
-    relmod = rel - q.astype(jnp.int32) * dist_of
+    relmod = rel_mod(gp - start_of, dist_of)
     # Signed roots: resolved positions carry -(byte+1); unresolved carry a
     # source position. Doubling then needs exactly one gather per round and
     # the final bytes fall out with no extra gather.
@@ -293,7 +293,7 @@ def _expand_and_resolve(t_rec, lane, ns, ok, *, B, N, S, R=SEG):
     )
     # Compact the unresolved set (the loop above guaranteed the count fits
     # KSUB). nonzero(size=) lowers to cumsum + scatter — a 4M-element
-    # argsort here was ~an order of magnitude more expensive on TPU.
+    # argsort here would sort the whole map.
     # Padding slots repeat index 0, so they must be inert: mask them to -1
     # in `sub` and scatter with mode="drop" via an out-of-range index.
     unres_mask = (root >= 0) & valid

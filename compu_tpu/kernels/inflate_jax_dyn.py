@@ -19,7 +19,7 @@ Phases 2-3 (expansion + pointer-doubling resolution) are shared with the
 fixed scan (_expand_and_resolve).
 
 Reference parity: the dynamic-block decode capability of inflate
-(/root/reference/src/decoder/zlib.rs:97) on the indexed device path.
+(reference src/decoder/zlib.rs:97) on the indexed device path.
 """
 
 from __future__ import annotations

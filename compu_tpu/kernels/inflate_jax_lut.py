@@ -24,7 +24,7 @@ Records and the expansion/resolution phases are shared with the fixed
 scan (inflate_jax._expand_and_resolve).
 
 Reference parity: dynamic-block decode of inflate
-(/root/reference/src/decoder/zlib.rs:97) on the indexed device path.
+(reference src/decoder/zlib.rs:97) on the indexed device path.
 """
 
 from __future__ import annotations
@@ -109,7 +109,7 @@ def _dist_lut_block(dist_lens, nbits=LUT_BITS):
 
 def _mux12(w, q):
     """Per-lane dynamic column select from a (L, 12) row window: a 3-level
-    where-tree (dense VPU, no gather). q in [0, 11]."""
+    where-tree (dense, no gather). q in [0, 11]."""
     b0 = (q & 1) > 0
     m = [jnp.where(b0, w[:, 2 * i + 1], w[:, 2 * i]) for i in range(6)]
     b1 = (q & 2) > 0

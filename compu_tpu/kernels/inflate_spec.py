@@ -21,8 +21,8 @@ dispatch (block ends are discovered, not known), continuing until the
 composed trajectory hits the block's EOB.
 
 Reference parity: foreign-stream decode of inflate
-(/root/reference/src/decoder/zlib.rs:97; golden-fixture oracle
-/root/reference/tests/decoder.rs:8-19), as a device pipeline.
+(reference src/decoder/zlib.rs:97; golden-fixture oracle
+reference tests/decoder.rs:8-19), as a device pipeline.
 """
 
 from __future__ import annotations
@@ -35,6 +35,7 @@ import jax
 import jax.numpy as jnp
 
 from ..formats.deflate import consts
+from .inflate_jax import rel_mod
 from .inflate_jax_lut import _dist_lut_block, _lit_lut_block, _mux12
 
 FBITS = 15          # RFC max code length — foreign streams use full range
@@ -205,9 +206,7 @@ def resolve_foreign(outlens: jnp.ndarray, is_lit: jnp.ndarray,
     lit_of = is_lit[tokid]
     pay_of = payload[tokid]
     dist_of = pay_of + 1
-    rel = gp - start_of
-    q = jnp.floor(rel.astype(jnp.float32) / dist_of.astype(jnp.float32))
-    relmod = rel - q.astype(jnp.int32) * dist_of
+    relmod = rel_mod(gp - start_of, dist_of)
     src = start_of - dist_of + relmod
     root = jnp.where(lit_of, -(pay_of + 1), jnp.clip(src, 0, NT - 1))
     # stored ranges are literal fixpoints

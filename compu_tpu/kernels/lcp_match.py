@@ -1,9 +1,8 @@
 """Lexicographic-sort LCP matcher (v4 LZ candidate stage).
 
-The v2/v3 matcher sorts positions by a 16-bit trigram hash and scans d
-sorted neighbors, XOR/ctz-comparing the full wcap-byte window at EVERY
-depth (deflate_jax_v2._candidates_xla / match_pallas.py) — measured 13.8
-ms per 16x256 KiB batch at depth 32 (PLAN r5), the dominant kernel stage.
+The hash matcher (deflate_jax_v2._candidates_xla) sorts positions by a
+16-bit trigram hash and scans d sorted neighbors, XOR/ctz-comparing the
+full wcap-byte window at EVERY depth.
 
 This stage replaces the hash with a CONTENT sort and the per-depth window
 compare with an adjacent-LCP min-composition:
@@ -27,32 +26,23 @@ compare with an adjacent-LCP min-composition:
 
 Reference parity: this is the match-finding stage of DEFLATE/zstd/brotli
 encoders that the reference reaches through libz's hash chains
-(/root/reference/src/encoder/zlib.rs:90-92); the sorted-neighbor+LCP
-formulation is the TPU-native equivalent (sorting networks + dense vector
+(reference src/encoder/zlib.rs:90-92); the sorted-neighbor+LCP
+formulation is the data-parallel equivalent (sorting networks + dense
 min/compare instead of pointer-chasing hash chains).
 
-Layout contract matches match_pallas.py: flattened (B*N,) sorted arrays,
-chunk-aligned blocks, per-block masking via ``adj = 0`` at block starts
-(a min-chain crossing a block boundary passes that 0 and dies).
+Layout: flattened (B*N,) sorted arrays, per-block masking via ``adj = 0``
+at block starts (a min-chain crossing a block boundary passes that 0 and
+dies).
 """
 
 from __future__ import annotations
 
-import functools
-
 import jax
 import jax.numpy as jnp
-from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
-
-C = 8192            # chunk elements per grid step
-ROWS = C // 128     # 64
-HALO = 128          # max scan depth either direction
 
 
 def _lzb(x: jnp.ndarray) -> jnp.ndarray:
-    """Leading zero BYTES of a u32 (0..4) via unsigned range compares —
-    no clz primitive needed (Mosaic-friendly)."""
+    """Leading zero BYTES of a u32 (0..4) via unsigned range compares."""
     return ((x <= jnp.uint32(0xFFFFFF)).astype(jnp.int32)
             + (x <= jnp.uint32(0xFFFF))
             + (x <= jnp.uint32(0xFF))
@@ -109,10 +99,6 @@ def sort_stage_lex(data: jnp.ndarray, n: jnp.ndarray, *, wcap: int,
     return sorted_ops  # (w0be..wkbe, ps)
 
 
-# ---------------------------------------------------------------------------
-# XLA reference implementation (CPU fallback + correctness oracle)
-# ---------------------------------------------------------------------------
-
 def lcp_candidates_xla(sorted_ops, *, depth: int, max_dist: int,
                        block_elems: int):
     """Best (len_bytes, dist) per sorted lane by adjacent-LCP composition
@@ -160,148 +146,3 @@ def lcp_candidates_xla(sorted_ops, *, depth: int, max_dist: int,
             nxt = jnp.where(lpos >= block_elems - (d + 1), 0, nxt)
             mf = jnp.minimum(mf, nxt)
     return best_len, best_dist
-
-
-# ---------------------------------------------------------------------------
-# Pallas TPU kernel
-# ---------------------------------------------------------------------------
-
-def _lcp_kernel(*refs, words: int, depth: int, max_dist: int,
-                block_elems: int):
-    nin = words + 1
-    cur = refs[:nin]                   # (ROWS, 128) blocks: w0..wk, ps
-    nxt = refs[nin:2 * nin]            # (1, 128) next-chunk head rows
-    bl_ref, bd_ref = refs[2 * nin], refs[2 * nin + 1]
-    # (nin + 1, 1, 128) previous chunk tails: w0..wk, ps, adj
-    carry = refs[2 * nin + 2]
-    i = pl.program_id(0)
-
-    @pl.when(i == 0)
-    def _init():
-        carry[...] = jnp.zeros((nin + 1, 1, 128), jnp.uint32)
-
-    vals = [cur[j][:, :] for j in range(nin)]
-    heads = [nxt[j][0:1, :] for j in range(nin)]  # row 0 of an (8,128) block
-    prev_rows = [jnp.concatenate([carry[j], vals[j][:-1, :]], axis=0)
-                 for j in range(nin)]
-    adj_carry_row = carry[nin].astype(jnp.int32)
-    for j in range(nin):
-        carry[j] = vals[j][ROWS - 1:ROWS, :]
-
-    row_i = jax.lax.broadcasted_iota(jnp.int32, (ROWS, 128), 0)
-    lane_i = jax.lax.broadcasted_iota(jnp.int32, (ROWS, 128), 1)
-    gpos = i * C + row_i * 128 + lane_i
-    lpos = gpos & (block_elems - 1)
-
-    # adj for this chunk (needs the -1 lane: prev rows give it)
-    wideB1 = [jnp.concatenate([prev_rows[j], vals[j]], axis=1)
-              for j in range(words)]
-    prev1 = tuple(w[:, 127:255] for w in wideB1)
-    adj = _adj_from_words(tuple(vals[:words]), prev1)
-    adj = jnp.where(lpos == 0, 0, adj)
-
-    # adj for the next chunk's head row (its -1 lane is our last row).
-    # The last row is re-read from the carry scratch: a direct
-    # vals[ROWS-1:] slice sits at sublane offset 7 and Mosaic cannot
-    # lane-concat it with an offset-0 operand; the scratch round-trip
-    # re-aligns it.
-    head_prev = tuple(
-        jnp.concatenate([carry[j][...], heads[j]], axis=1)[:, 127:255]
-        for j in range(words))
-    head_lpos = ((i + 1) * C + lane_i[:1, :]) & (block_elems - 1)
-    adj_head = _adj_from_words(tuple(heads[:words]), head_prev)
-    adj_head = jnp.where(head_lpos == 0, 0, adj_head)
-
-    ps = vals[words].astype(jnp.int32)
-    ps_prev_rows = prev_rows[words].astype(jnp.int32)
-    ps_head = heads[words].astype(jnp.int32)
-    carry[nin] = adj.astype(jnp.uint32)[ROWS - 1:ROWS, :]
-    adj_prev_rows = jnp.concatenate([adj_carry_row, adj[:-1, :]], axis=0)
-    wideB_adj = jnp.concatenate([adj_prev_rows, adj], axis=1)   # (ROWS,256)
-    wideB_ps = jnp.concatenate([ps_prev_rows, ps], axis=1)
-    nxt_adj_rows = jnp.concatenate([adj[1:, :], adj_head], axis=0)
-    nxt_ps_rows = jnp.concatenate([ps[1:, :], ps_head], axis=0)
-    wideF_adj = jnp.concatenate([adj, nxt_adj_rows], axis=1)    # (ROWS,256)
-    wideF_ps = jnp.concatenate([ps, nxt_ps_rows], axis=1)
-
-    import os
-
-    prefer_far = os.environ.get("COMPU_LCP_TIE") == "far"
-    best_len = jnp.zeros((ROWS, 128), jnp.int32)
-    best_dist = jnp.zeros((ROWS, 128), jnp.int32)
-    mb = adj
-    mf = wideF_adj[:, 1:129]
-
-    def tie(l, dist, bl, bd):
-        return ((l == bl) & (dist > bd)) if prefer_far             else ((l == bl) & (dist < bd))
-
-    for d in range(1, depth + 1):
-        dist_b = ps - wideB_ps[:, 128 - d:256 - d]
-        valid = (dist_b > 0) & (dist_b <= max_dist) & (mb > 0)
-        better = valid & ((mb > best_len)
-                          | tie(mb, dist_b, best_len, best_dist))
-        best_len = jnp.where(better, mb, best_len)
-        best_dist = jnp.where(better, dist_b, best_dist)
-
-        dist_f = ps - wideF_ps[:, d:128 + d]
-        valid = (dist_f > 0) & (dist_f <= max_dist) & (mf > 0)
-        better = valid & ((mf > best_len)
-                          | tie(mf, dist_f, best_len, best_dist))
-        best_len = jnp.where(better, mf, best_len)
-        best_dist = jnp.where(better, dist_f, best_dist)
-
-        if d < depth:
-            mb = jnp.minimum(mb, wideB_adj[:, 128 - d:256 - d])
-            mf = jnp.minimum(mf, wideF_adj[:, d + 1:129 + d])
-    bl_ref[:, :] = best_len
-    bd_ref[:, :] = best_dist
-
-
-@functools.partial(jax.jit, static_argnames=("depth", "max_dist",
-                                              "block_elems", "interpret"))
-def lcp_candidates_pallas(sorted_ops, *, depth: int, max_dist: int,
-                          block_elems: int, interpret: bool = False):
-    """Pallas form of :func:`lcp_candidates_xla` (identical outputs)."""
-    *wbe, ps = sorted_ops
-    N = ps.shape[0]
-    assert N % C == 0 and block_elems % C == 0
-    assert block_elems & (block_elems - 1) == 0
-    assert depth < HALO
-    words = len(wbe)
-    nin = words + 1
-    nchunks = N // C
-
-    def prep(x):
-        return x.astype(jnp.uint32).reshape(-1, 128)
-
-    ins = [prep(w) for w in wbe] + [prep(ps)]
-    cur_spec = pl.BlockSpec((ROWS, 128), lambda i: (i, 0),
-                            memory_space=pltpu.VMEM)
-    # next-chunk head rows (8-row block for tiling; only row 0 is used;
-    # clamped at the array end — chains crossing the end pass the lane
-    # whose ASSUMED lpos is 0, where adj is forced to 0, so whatever
-    # content the clamped fetch returns is inert)
-    n8 = (N // 128) // 8
-    head_spec = pl.BlockSpec(
-        (8, 128),
-        lambda i: (jnp.minimum((i + 1) * (ROWS // 8), n8 - 1), 0),
-        memory_space=pltpu.VMEM)
-    bl, bd = pl.pallas_call(
-        functools.partial(_lcp_kernel, words=words, depth=depth,
-                          max_dist=max_dist, block_elems=block_elems),
-        grid=(nchunks,),
-        in_specs=[cur_spec] * nin + [head_spec] * nin,
-        out_specs=[
-            pl.BlockSpec((ROWS, 128), lambda i: (i, 0),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((ROWS, 128), lambda i: (i, 0),
-                         memory_space=pltpu.VMEM),
-        ],
-        out_shape=[
-            jax.ShapeDtypeStruct((N // 128, 128), jnp.int32),
-            jax.ShapeDtypeStruct((N // 128, 128), jnp.int32),
-        ],
-        scratch_shapes=[pltpu.VMEM((nin + 1, 1, 128), jnp.uint32)],
-        interpret=interpret,
-    )(*ins, *ins)
-    return bl.reshape(N), bd.reshape(N)

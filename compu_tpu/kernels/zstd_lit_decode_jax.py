@@ -10,13 +10,13 @@ the exact semantics of huff.py's HufTable.decode_stream / the C++
 decoder's backward reader, vectorized across lanes.
 
 Sequence execution stays host-side (the interleaved FSE state chain is
-serial by format; PLAN r4 decode laws) — this covers VERDICT r4 item 8:
+serial by format) — this covers VERDICT r4 item 8:
 the literal stage as a device-decodable chunk, byte-identical to the
 host on foreign (libzstd-produced) frames.
 
 Throughput model: ~1 byte/lane/step; parallelism = 4 streams x blocks.
-Like the deflate device decode this is latency-bound on TPU — the value
-here is stage coverage and the measured number, not speed-of-light.
+Like the deflate device decode this is latency-bound (one step per
+emitted byte) — the value here is stage coverage, not speed-of-light.
 """
 
 from __future__ import annotations

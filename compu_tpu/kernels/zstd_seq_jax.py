@@ -20,7 +20,7 @@ at <=7K sequences per 256 KiB block the single scan is not the
 bottleneck.
 
 Reference parity: the sequence half of ZSTD_compressStream2's block
-entropy (/root/reference/src/encoder/zstd.rs:156-198), on device.
+entropy (reference src/encoder/zstd.rs:156-198), on device.
 """
 
 from __future__ import annotations

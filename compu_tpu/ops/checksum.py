@@ -2,12 +2,12 @@
 
 The reference delegates checksums to the native codec libraries (libz
 computes adler32/crc32 inside deflate/inflate). Here they are first-class
-data-parallel primitives, structured the TPU way:
+data-parallel primitives, structured for vector hardware:
 
 * the stream is split into L contiguous *lanes* (equal-size chunks);
 * all lanes' partial checksums advance simultaneously with vectorized ops
-  (slice-by-8 table steps — on device the table gather maps onto a VPU
-  gather / one-hot MXU matmul, see kernels/);
+  (slice-by-8 table steps — on device the table gather becomes a
+  GF(2) bit-matrix matmul, see kernels/checksum_jax.py);
 * lane partials merge with O(L) combine algebra:
   - adler32 is a pair of modular sums with a closed-form chunk merge;
   - crc32 is GF(2)-linear: a register is shifted past a lane of zero bytes

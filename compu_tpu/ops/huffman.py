@@ -7,7 +7,7 @@ alphabets, by the other formats' prefix-code stages).
 * :func:`build_decode_table` — flat 2^max_bits lookup table (symbol, length)
   indexed by the next ``max_bits`` LSB-first stream bits. This is the
   table-driven decode form that vectorizes: on device the lookup is a
-  per-lane gather / one-hot MXU matmul over the table.
+  per-lane gather or one-hot matmul over the table.
 """
 
 from __future__ import annotations

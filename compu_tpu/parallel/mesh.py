@@ -48,7 +48,7 @@ def make_sharded_encode_step(mesh: Mesh, *, depth: int = 8, nice: int = 128,
     def local_encode(blocks, lens):
         def one(args):
             block, n = args
-            # v3 kernel: sort-carried matching, MXU parse, device-built
+            # v3 kernel: sort-carried matching, matmul parse, device-built
             # dynamic Huffman trees, matmul pack.
             return encode_block_dyn(block, n, depth=min(depth, 8))
 

@@ -3,7 +3,8 @@
 Compiles the shared library on first use (g++, cached beside the source)
 and exposes ctypes wrappers; every entry point has a pure-Python/numpy
 fallback elsewhere in the package, so absence of a toolchain only costs
-host-side speed.
+host-side speed. A cached library that does not load (built on another
+machine) is rebuilt; :func:`load_status` says what happened.
 """
 
 from __future__ import annotations
@@ -25,10 +26,32 @@ _SO = _SRC.with_name("libcompu_runtime.so")
 _lock = threading.Lock()
 _lib = None
 _tried = False
+_status = "not loaded"
+
+
+def _build(so: pathlib.Path, srcs, extra) -> None:
+    """Compile to a private name, then rename over ``so`` (atomic, so a
+    concurrent loader never maps a half-written file)."""
+    tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
+    subprocess.run(
+        ["g++", "-O3", "-shared", "-fPIC", *extra,
+         "-o", str(tmp), *map(str, srcs)],
+        check=True,
+        capture_output=True,
+        timeout=120,
+    )
+    os.replace(tmp, so)
+
+
+def load_status() -> str:
+    """How the native runtime came up: "loaded", "built", "rebuilt" (a
+    cached library failed to load) or "unavailable: <reason>"."""
+    _load()
+    return _status
 
 
 def _load():
-    global _lib, _tried
+    global _lib, _tried, _status
     with _lock:
         if _tried:
             return _lib
@@ -41,17 +64,18 @@ def _load():
             # cache filename so sanitized/plain builds never collide.
             extra = os.environ.get("COMPU_NATIVE_CFLAGS", "").split()
             so = _SO if not extra else _SO.with_name("libcompu_runtime_san.so")
+            status = "loaded"
             if not so.exists() or any(
                 so.stat().st_mtime < p.stat().st_mtime for p in srcs
             ):
-                subprocess.run(
-                    ["g++", "-O3", "-shared", "-fPIC", *extra,
-                     "-o", str(so), *map(str, srcs)],
-                    check=True,
-                    capture_output=True,
-                    timeout=120,
-                )
-            lib = ctypes.CDLL(str(so))
+                _build(so, srcs, extra)
+                status = "built"
+            try:
+                lib = ctypes.CDLL(str(so))
+            except OSError:
+                _build(so, srcs, extra)
+                lib = ctypes.CDLL(str(so))
+                status = "rebuilt"
             lib.compu_crc32.restype = ctypes.c_uint32
             lib.compu_crc32.argtypes = [ctypes.c_char_p, ctypes.c_size_t, ctypes.c_uint32]
             lib.compu_adler32.restype = ctypes.c_uint32
@@ -249,8 +273,10 @@ def _load():
                     lib.compu_inflate_get_check.restype = ctypes.c_uint32
                     lib.compu_inflate_get_check.argtypes = [ctypes.c_void_p]
             _lib = lib
-        except Exception:
+            _status = status
+        except Exception as exc:
             _lib = None
+            _status = f"unavailable: {type(exc).__name__}: {exc}"
         return _lib
 
 

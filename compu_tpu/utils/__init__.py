@@ -1,7 +1,7 @@
 """Observability and shared utilities.
 
 The reference is ``no_std`` and has no tracing/metrics at all (SURVEY §5);
-these are additive TPU-framework subsystems: per-block throughput counters
+these are additive subsystems: per-block throughput counters
 and JAX profiler trace annotation helpers.
 """
 

@@ -1,7 +1,7 @@
 // Native Brotli decoder (RFC 7932) for the compu_tpu host runtime.
 //
 // Role: the reference ships TWO interchangeable brotli decode backends
-// behind one vtable (/root/reference/src/decoder/brotli_c.rs:22-28 wrapping
+// behind one vtable (reference src/decoder/brotli_c.rs:22-28 wrapping
 // the C library and src/decoder/brotli.rs:20-26 wrapping rust-brotli); this
 // file is this framework's second brotli implementation — a from-scratch
 // meta-block decoder, NOT a copy of libbrotli (different structure:

@@ -1,7 +1,7 @@
 // Native hot loops for the brotli ENCODER's per-command stages.
 //
 // Role: the reference's brotli encode hot loop lives in libbrotli
-// (/root/reference/src/encoder/brotli_c.rs:54-61 ->
+// (reference src/encoder/brotli_c.rs:54-61 ->
 // BrotliEncoderCompressStream); here the meta-block planning (context
 // clustering, prefix-code construction, header serialization) stays in
 // Python (formats/brotli/encode.py) and only the per-token/per-symbol

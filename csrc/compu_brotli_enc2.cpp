@@ -2,8 +2,8 @@
 // fully independent brotli encoder implementation.
 //
 // Role: the reference ships TWO complete interchangeable brotli encoders
-// behind one vtable (/root/reference/src/encoder/brotli.rs:22-29 pure-Rust
-// vs /root/reference/src/encoder/brotli_c.rs:42-50 C). This file completes
+// behind one vtable (reference src/encoder/brotli.rs:22-29 pure-Rust
+// vs reference src/encoder/brotli_c.rs:42-50 C). This file completes
 // the same pattern here: the Python meta-block planner
 // (formats/brotli/encode.py, with csrc/compu_brotli_enc.cpp hot loops) is
 // one implementation; this is the other — a from-scratch C++ encoder with

@@ -1,7 +1,7 @@
 // Native raw-DEFLATE encoder (RFC 1951) for the compu_tpu host runtime.
 //
 // Role: the reference's encode hot loop is native libz deflate()
-// (/root/reference/src/encoder/zlib.rs:90-92); this is this framework's
+// (reference src/encoder/zlib.rs:90-92); this is this framework's
 // equivalent native hot loop — a from-scratch encoder, not a zlib copy:
 // hash-4 head/prev chains with lazy matching, per-block histograms, an
 // in-place Huffman build with iterative length limiting, and RLE-coded

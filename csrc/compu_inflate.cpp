@@ -1,7 +1,7 @@
 // Native raw-DEFLATE decoder (RFC 1951) for the compu_tpu host runtime.
 //
 // Role: the reference delegates its decode hot loop to native libz
-// (/root/reference/src/decoder/zlib.rs:97 -> inflate()); this is the
+// (reference src/decoder/zlib.rs:97 -> inflate()); this is the
 // equivalent native hot loop for this framework's host path — a from-
 // scratch table-driven decoder, NOT a copy of zlib (different structure;
 // see below). Framing (zlib/gzip headers + checksums) stays in Python;

@@ -7,8 +7,8 @@
 // algorithm at ~60 M simple ops per MiB. Mirrors the role of the cost
 // model inside libbrotli's q10/q11 backward references and zlib's
 // level-9 effort that the reference reaches through FFI
-// (/root/reference/src/encoder/brotli_c.rs:53-85,
-//  /root/reference/src/encoder/zlib.rs:90-92).
+// (reference src/encoder/brotli_c.rs:53-85,
+//  reference src/encoder/zlib.rs:90-92).
 //
 // Contract (matches formats/deflate/deflate_encode.py::_optimal_parse):
 //   cost[i] = min( litcost[data[i]] + cost[i+1],

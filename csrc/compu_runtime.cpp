@@ -3,7 +3,7 @@
 // The reference implements its runtime layer natively (the C-ABI allocator
 // bridge in src/mem.rs, the fixed staging buffer in src/buffer.rs, with the
 // codec hot loops in native libraries). Here the codec compute path is
-// JAX/XLA on the TPU; this module is the native *host* runtime around it:
+// JAX/XLA on the accelerator; this module is the native *host* runtime around it:
 //
 //  - slice-by-8 crc32 / vectorizable adler32 / xxh64: the host side of the
 //    framing path (device kernels produce per-block partials; these cover

@@ -1,7 +1,7 @@
 // Native Zstandard frame decoder (RFC 8878) for the compu_tpu host runtime.
 //
 // Role: the reference delegates zstd decode to libzstd
-// (/root/reference/src/decoder/zstd.rs:109-111 -> ZSTD_decompressStream);
+// (reference src/decoder/zstd.rs:109-111 -> ZSTD_decompressStream);
 // this is the equivalent native hot loop for this framework's host path —
 // a from-scratch decoder, NOT a copy of libzstd (different structure: one
 // flat table per entropy stage, absolute-bit-position backward reader,

@@ -1,7 +1,7 @@
 // Native hot loops for the zstd ENCODER's entropy stages.
 //
 // Role: the reference's zstd encode hot loop lives in libzstd
-// (/root/reference/src/encoder/zstd.rs:167-169 -> ZSTD_compressStream2);
+// (reference src/encoder/zstd.rs:167-169 -> ZSTD_compressStream2);
 // here the block planning (table selection, normalization, section
 // headers) stays in Python (formats/zstd/encode.py) and only the
 // per-symbol loops move to C++:

@@ -4,7 +4,7 @@
 // brotli.
 //
 // Role: the reference's zstd encode hot loop lives in libzstd
-// (/root/reference/src/encoder/zstd.rs:167-169 -> ZSTD_compressStream2);
+// (reference src/encoder/zstd.rs:167-169 -> ZSTD_compressStream2);
 // the Python/JAX pipeline (formats/zstd/encode.py) is this framework's
 // reference implementation with per-stage csrc hot loops, but its block
 // orchestration (numpy table builds, section assembly) caps it near

@@ -2,7 +2,7 @@
 
 The speculative-resync path must decode ARBITRARY streams bit-exactly:
 golden fixtures from stock gzip (the reference's decode oracle,
-/root/reference/tests/decoder.rs:8-19), python-zlib streams with dynamic
+reference tests/decoder.rs:8-19), python-zlib streams with dynamic
 blocks, multi-block streams with window history crossing block
 boundaries, stored blocks, and the reference's four decode driver styles
 (one-shot / partial-output restart / Buffer-chunked / decode_vec_full).

@@ -1,6 +1,6 @@
 """Hybrid pipeline test: the shared device LZ stage feeding host entropy
 coders (small shapes keep CPU-XLA compiles fast; the same graph runs on
-TPU)."""
+device)."""
 
 import pathlib
 import sys

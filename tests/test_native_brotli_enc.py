@@ -1,6 +1,6 @@
 """Second brotli ENCODER implementation (csrc/compu_brotli_enc2.cpp) —
 the reference's dual-encoder pattern on the encode side
-(/root/reference/src/encoder/brotli_c.rs:42-50 vs encoder/brotli.rs:22-29):
+(reference src/encoder/brotli_c.rs:42-50 vs encoder/brotli.rs:22-29):
 two complete, interchangeable implementations behind one Interface.
 
 Oracles: libbrotli decode (foreign tool), this repo's pure-Python decoder

@@ -1,5 +1,5 @@
 """Block-parallel scheduler + device kernel + mesh tests (CPU: small blocks
-keep XLA compiles fast; the same graphs run on TPU unchanged)."""
+keep XLA compiles fast; the same graphs run on the accelerator unchanged)."""
 
 import pathlib
 import sys

@@ -86,7 +86,7 @@ except Exception:
     pass
 
 # Device-backed deflate encoder through the same product Interface (VERDICT
-# r1 item 4: the TPU path must be reachable via the vtable like any other
+# r1 item 4: the device path must be reachable via the vtable like any other
 # backend). Small block size keeps the CPU-jit test fast; the invariants
 # (chunked == one-shot, detection, reset-reuse) are block-size independent.
 def _zlib_device_enc(mode):
